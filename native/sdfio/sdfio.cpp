@@ -1,9 +1,9 @@
-// sdfio — native image codec for chaq_sdfgen_tpu (C ABI, ctypes-bound).
+// sdfio — native image codec for chaq_sdfgen (C ABI, ctypes-bound).
 //
-// TPU-native counterpart of the reference's vendored stb_image /
+// Counterpart of the reference's vendored stb_image /
 // stb_image_write layer (reference .gitmodules:1-3, openmp/sdfgen.c:17-20):
 // the host-side runtime component stays native C++ while the compute path
-// is JAX/Pallas. Implements the formats the reference emits natively:
+// is JAX. Implements the formats the reference emits natively:
 // PNG (via zlib), BMP, TGA, and baseline JPEG encode with the -q quality
 // knob (openmp/sdfgen.c:327-333 writes JPG via stbi_write_jpg(quality));
 // decode covers PNG/BMP/TGA/PNM and converts to the same 2-channel
@@ -220,7 +220,7 @@ int sdfio_decode_png(const uint8_t* data, size_t len, uint8_t** out, int* w, int
 }
 
 // ---------------------------------------------------------------------------
-// PNG encode: 8-bit grayscale, filter 0, one IDAT.
+// PNG encode: 8-bit grayscale or gray+alpha, filter 0, one IDAT.
 // ---------------------------------------------------------------------------
 
 static void png_chunk(std::vector<uint8_t>& out, const char* type, const uint8_t* data, size_t len) {
@@ -232,12 +232,14 @@ static void png_chunk(std::vector<uint8_t>& out, const char* type, const uint8_t
     wr_be32(out, crc);
 }
 
-int sdfio_encode_png(const uint8_t* gray, int w, int h, uint8_t** out, size_t* out_len) {
+static int encode_png(const uint8_t* px, int w, int h, int channels, uint8_t** out,
+                      size_t* out_len) {
     if (w <= 0 || h <= 0) return -1;
-    std::vector<uint8_t> raw((size_t)(w + 1) * h);
+    const size_t row = (size_t)w * channels;
+    std::vector<uint8_t> raw((row + 1) * h);
     for (int y = 0; y < h; ++y) {
-        raw[(size_t)y * (w + 1)] = 0;  // filter: none
-        memcpy(raw.data() + (size_t)y * (w + 1) + 1, gray + (size_t)y * w, w);
+        raw[(size_t)y * (row + 1)] = 0;  // filter: none
+        memcpy(raw.data() + (size_t)y * (row + 1) + 1, px + (size_t)y * row, row);
     }
     uLongf comp_cap = compressBound((uLong)raw.size());
     std::vector<uint8_t> comp(comp_cap);
@@ -250,7 +252,7 @@ int sdfio_encode_png(const uint8_t* gray, int w, int h, uint8_t** out, size_t* o
     ihdr[0] = (uint8_t)(w >> 24); ihdr[1] = (uint8_t)(w >> 16); ihdr[2] = (uint8_t)(w >> 8); ihdr[3] = (uint8_t)w;
     ihdr[4] = (uint8_t)(h >> 24); ihdr[5] = (uint8_t)(h >> 16); ihdr[6] = (uint8_t)(h >> 8); ihdr[7] = (uint8_t)h;
     ihdr[8] = 8;   // bit depth
-    ihdr[9] = 0;   // grayscale
+    ihdr[9] = channels == 2 ? 4 : 0;  // gray+alpha or grayscale
     ihdr[10] = ihdr[11] = ihdr[12] = 0;
     png_chunk(png, "IHDR", ihdr, 13);
     png_chunk(png, "IDAT", comp.data(), comp_cap);
@@ -262,6 +264,15 @@ int sdfio_encode_png(const uint8_t* gray, int w, int h, uint8_t** out, size_t* o
     *out = res;
     *out_len = png.size();
     return 0;
+}
+
+int sdfio_encode_png(const uint8_t* gray, int w, int h, uint8_t** out, size_t* out_len) {
+    return encode_png(gray, w, h, 1, out, out_len);
+}
+
+// (H, W, 2) interleaved gray+alpha, the layout sdfio_decode_* produce
+int sdfio_encode_png_ga(const uint8_t* ga, int w, int h, uint8_t** out, size_t* out_len) {
+    return encode_png(ga, w, h, 2, out, out_len);
 }
 
 // ---------------------------------------------------------------------------
@@ -879,7 +890,7 @@ int sdfio_decode_hdr(const uint8_t* data, size_t len, uint8_t** out, int* w, int
 
 // ---------------------------------------------------------------------------
 // Softimage PIC decode (the last stb_image input format the framework
-// reads: /root/reference/openmp/sdfgen.c:252-256 inherits it). Written
+// reads: the reference's openmp/sdfgen.c:252-256 inherits it). Written
 // from the published format description: 104-byte header (magic
 // 0x5380f634, version float, 80-byte comment, "PICT", u16be w/h, ratio,
 // fields, pad) then chained 4-byte channel packets

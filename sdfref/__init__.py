@@ -1,10 +1,9 @@
 """sdfref — pure-NumPy oracle for the reference chaq-sdfgen semantics.
 
-This package is the *test oracle* for the TPU framework: a direct, slow,
+This package is the *test oracle* for the framework: a direct, slow,
 obviously-correct transcription of the reference's OpenMP pipeline
-(/root/reference/openmp/sdfgen.c, /root/reference/openmp/df.c) and of the
-OpenCL kernel semantics (/root/reference/opencl/sdf.cl). It is NOT part of
-the production TPU path.
+(openmp/sdfgen.c, openmp/df.c in the reference) and of the OpenCL kernel
+semantics (opencl/sdf.cl). It is NOT part of the production path.
 """
 
 from sdfref.oracle import (

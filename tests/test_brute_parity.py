@@ -8,8 +8,8 @@ import pytest
 import jax.numpy as jnp
 
 from sdfref import oracle
-from chaq_sdfgen_tpu.models.sdf_model import hard_sdf_brute
-from chaq_sdfgen_tpu.ops import brute
+from chaq_sdfgen.models.sdf_model import hard_sdf_brute
+from chaq_sdfgen.ops import brute
 
 
 def _img(b):

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chaq_sdfgen_tpu.config import SoftConfig
-from chaq_sdfgen_tpu.models import checkpoint as ckpt
-from chaq_sdfgen_tpu.models.soft_model import SoftSDFModel, create_train_state, make_train_step
+from chaq_sdfgen.config import SoftConfig
+from chaq_sdfgen.models import checkpoint as ckpt
+from chaq_sdfgen.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 
 
 def test_train_state_roundtrip(tmp_path):

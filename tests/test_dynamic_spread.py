@@ -1,11 +1,15 @@
-"""fused_sdf_bytes_dynamic: one compiled kernel per band bucket must be
-byte-identical to the per-spread static pipeline (the banding argument —
-taps beyond spread+2 clamp identically through the byte remap)."""
+"""One band serves many spreads: distances are exact within the band, so
+taps beyond spread+2 clamp identically through the byte remap. Covers the
+kernel at a bucketed band, the spread sweep (one program for every
+spread), and soft fields with traced (annealed) parameters."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from chaq_sdfgen_tpu.ops import pallas_edt
+from chaq_sdfgen.models.atlas import _sweep, atlas_sdf_spread_sweep
+from chaq_sdfgen.models.sdf_model import hard_sdf_exact_from_bool
+from chaq_sdfgen.ops import edt_triton, softsdf
 
 
 @pytest.mark.parametrize("asym", [False, True])
@@ -15,57 +19,49 @@ def test_dynamic_spread_matches_static(asym):
     band = 48  # bucket serving spreads up to 46
     for spread in (3, 17, 30, 46):
         want = np.asarray(
-            pallas_edt.fused_sdf_bytes(
-                b, spread, asymmetric=asym, band=band, interpret=True
-            )
+            hard_sdf_exact_from_bool(b, spread, asymmetric=asym, core="xla")
         )
         got = np.asarray(
-            pallas_edt.fused_sdf_bytes_dynamic(
-                b, jnp.int32(spread), band=band, asymmetric=asym, interpret=True
-            )
+            edt_triton.sdf_bytes(b, spread, asymmetric=asym, band=band, interpret=True)
         )
         assert (got == want).all(), (spread, asym, int((got != want).sum()))
 
 
 def test_dynamic_spread_batched():
     rng = np.random.default_rng(4)
-    b = jnp.asarray(rng.random((3, 64, 96)) < 0.4)
-    want = np.asarray(
-        pallas_edt.fused_sdf_bytes(b, 20, band=32, interpret=True)
-    )
-    got = np.asarray(
-        pallas_edt.fused_sdf_bytes_dynamic(b, jnp.int32(20), band=32, interpret=True)
-    )
-    assert (got == want).all()
+    imgs = np.zeros((3, 64, 96, 2), np.uint8)
+    imgs[..., 1] = np.where(rng.random((3, 64, 96)) < 0.4, 255, 0)
+    b = jnp.asarray(imgs[..., 1] > 127)
+    sweep = np.asarray(atlas_sdf_spread_sweep(jnp.asarray(imgs), [7, 20]))
+    for i, spread in enumerate((7, 20)):
+        want = np.asarray(edt_triton.sdf_bytes(b, spread, band=32, interpret=True))
+        assert (sweep[i] == want).all()
 
 
 def test_dynamic_spread_one_compile():
-    # same traced program across spreads: jit cache must not grow
+    # a sweep over several spreads is ONE compiled program
     rng = np.random.default_rng(5)
-    b = jnp.asarray(rng.random((64, 64)) < 0.3)
-    f = pallas_edt.fused_sdf_bytes_dynamic
-    f(b, jnp.int32(5), band=32, interpret=True)
-    misses0 = f._cache_size()
-    f(b, jnp.int32(9), band=32, interpret=True)
-    f(b, jnp.int32(30), band=32, interpret=True)
-    assert f._cache_size() == misses0
+    imgs = jnp.asarray((rng.random((2, 64, 64, 2)) * 255).astype(np.uint8))
+    n0 = _sweep._cache_size()
+    atlas_sdf_spread_sweep(imgs, [5, 9, 30])
+    assert _sweep._cache_size() == n0 + 1
+    atlas_sdf_spread_sweep(imgs, [5, 9, 30])
+    assert _sweep._cache_size() == n0 + 1
+    with pytest.raises(ValueError):
+        atlas_sdf_spread_sweep(imgs, [5, 30], band=16)
 
 
 def test_dynamic_soft_params_match_static():
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as F
-
     rng = np.random.default_rng(6)
     gray = jnp.asarray((rng.random((64, 96)) * 255).astype(np.float32))
-    band = 10
+
+    @jax.jit
+    def traced(g, tau, t):
+        return softsdf.soft_sdf_field(g, 8, tau=tau, temperature=t)
+
     for tau, t in ((2.0, 1.0), (0.05, 0.02)):
-        want = np.asarray(
-            F.soft_sdf_field_fused(gray, band, tau, t, 1e-6, True, True)
-        )
-        got = np.asarray(
-            F.soft_sdf_field_fused_dynamic(
-                gray, jnp.float32(tau), jnp.float32(t), band, interpret=True
-            )
-        )
+        want = np.asarray(softsdf.soft_sdf_field_scan(gray, 8, tau, t))
+        got = np.asarray(traced(gray, jnp.float32(tau), jnp.float32(t)))
         # traced params divide in f32 (vs double-then-round for static
         # floats) — identical for dyadic values, <= 1 ulp otherwise,
         # amplified through exp by at most ~1e-7 relative
@@ -73,16 +69,11 @@ def test_dynamic_soft_params_match_static():
 
 
 def test_dynamic_soft_grad_flows_to_gray():
-    import jax
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as F
-
     rng = np.random.default_rng(7)
     gray = jnp.asarray((rng.random((64, 64)) * 255).astype(np.float32))
 
     def loss(g, t):
-        return jnp.sum(
-            F.soft_sdf_field_fused_dynamic(g, jnp.float32(2.0), t, 10, interpret=True)
-        )
+        return jnp.sum(softsdf.soft_sdf_field(g, 8, tau=jnp.float32(2.0), temperature=t))
 
     dg, dt = jax.grad(loss, argnums=(0, 1))(gray, jnp.float32(1.0))
     assert np.isfinite(np.asarray(dg)).all() and np.abs(np.asarray(dg)).sum() > 0
@@ -91,11 +82,7 @@ def test_dynamic_soft_grad_flows_to_gray():
 
 def test_soft_sdf_field_traced_temperature():
     # public API with a traced annealing schedule: one jit serves all
-    # temperatures (CPU takes the composed path; on TPU the fused gate
-    # dispatches to the dynamic-params kernels)
-    import jax
-    from chaq_sdfgen_tpu.ops import softsdf
-
+    # temperatures through the scan cores
     rng = np.random.default_rng(8)
     gray = jnp.asarray((rng.random((48, 64)) * 255).astype(np.float32))
 
@@ -105,14 +92,14 @@ def test_soft_sdf_field_traced_temperature():
 
     a = np.asarray(field(gray, jnp.float32(1.0)))
     b = np.asarray(field(gray, jnp.float32(0.25)))
-    want = np.asarray(softsdf.soft_sdf_field(gray, 6, tau=2.0, temperature=1.0))
+    want = np.asarray(softsdf.soft_sdf_field_scan(gray, 6, tau=2.0, temperature=1.0))
     np.testing.assert_allclose(a, want, rtol=2e-5, atol=2e-5)
     assert np.abs(a - b).max() > 1e-3  # schedule actually changes the field
 
 
 def test_atlas_spread_sweep_matches_per_spread():
-    from chaq_sdfgen_tpu.config import SdfConfig
-    from chaq_sdfgen_tpu.models.atlas import atlas_sdf, atlas_sdf_spread_sweep
+    from chaq_sdfgen.config import SdfConfig
+    from chaq_sdfgen.models.atlas import atlas_sdf
 
     rng = np.random.default_rng(9)
     imgs = (rng.random((2, 64, 96, 2)) * 255).astype(np.uint8)

@@ -1,5 +1,5 @@
 """Hard-mode EXACT pipeline parity: byte-for-byte vs the NumPy oracle (and
-hence vs the reference OpenMP binary / golden sample). BASELINE config 1."""
+hence vs the reference OpenMP binary / golden sample)."""
 
 import numpy as np
 import pytest
@@ -7,8 +7,8 @@ import pytest
 import jax.numpy as jnp
 
 from sdfref import oracle
-from chaq_sdfgen_tpu.models.sdf_model import hard_sdf_exact, hard_sdf_exact_from_bool
-from chaq_sdfgen_tpu.ops import edt
+from chaq_sdfgen.models.sdf_model import hard_sdf_exact, hard_sdf_exact_from_bool
+from chaq_sdfgen.ops import edt
 
 
 def test_exact_matches_golden_sample(sample_input_2ch, sample_golden):
@@ -18,7 +18,7 @@ def test_exact_matches_golden_sample(sample_input_2ch, sample_golden):
         asymmetric=True,
         channel=0,
         test_above=True,
-        use_pallas=False,
+        core="xla",
     )
     np.testing.assert_array_equal(np.asarray(out), sample_golden)
 
@@ -32,7 +32,7 @@ def test_exact_matches_oracle_random(spread, asymmetric):
     img2ch[..., 1] = np.where(b, 255, 0)
     want = oracle.sdf_pipeline_openmp(img2ch, spread=spread, asymmetric=asymmetric, channel=1)
     got = hard_sdf_exact(
-        jnp.asarray(img2ch), spread=spread, asymmetric=asymmetric, channel=1, use_pallas=False
+        jnp.asarray(img2ch), spread=spread, asymmetric=asymmetric, channel=1, core="xla"
     )
     np.testing.assert_array_equal(np.asarray(got), want)
 
@@ -46,7 +46,7 @@ def test_exact_degenerate_and_nonsquare(shape):
     img2ch = np.zeros(shape + (2,), dtype=np.uint8)
     img2ch[..., 1] = np.where(b, 200, 20)
     want = oracle.sdf_pipeline_openmp(img2ch, spread=8, asymmetric=False, channel=1)
-    got = hard_sdf_exact(jnp.asarray(img2ch), spread=8, use_pallas=False)
+    got = hard_sdf_exact(jnp.asarray(img2ch), spread=8, core="xla")
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
@@ -56,7 +56,7 @@ def test_exact_uniform_images():
     for fill, spread, asym in [(255, 16, False), (0, 16, False), (255, 7, True), (0, 7, True)]:
         img2ch = np.full((12, 9, 2), fill, dtype=np.uint8)
         want = oracle.sdf_pipeline_openmp(img2ch, spread=spread, asymmetric=asym, channel=1)
-        got = hard_sdf_exact(jnp.asarray(img2ch), spread=spread, asymmetric=asym, use_pallas=False)
+        got = hard_sdf_exact(jnp.asarray(img2ch), spread=spread, asymmetric=asym, core="xla")
         np.testing.assert_array_equal(np.asarray(got), want)
 
 
@@ -64,7 +64,7 @@ def test_invert_flag_matches_oracle():
     rng = np.random.default_rng(3)
     img2ch = (rng.random((20, 20, 2)) * 255).astype(np.uint8)
     want = oracle.sdf_pipeline_openmp(img2ch, spread=10, channel=1, test_above=False)
-    got = hard_sdf_exact(jnp.asarray(img2ch), spread=10, channel=1, test_above=False, use_pallas=False)
+    got = hard_sdf_exact(jnp.asarray(img2ch), spread=10, channel=1, test_above=False, core="xla")
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
@@ -72,7 +72,7 @@ def test_luminance_channel_matches_oracle():
     rng = np.random.default_rng(4)
     img2ch = (rng.random((20, 20, 2)) * 255).astype(np.uint8)
     want = oracle.sdf_pipeline_openmp(img2ch, spread=10, channel=0)
-    got = hard_sdf_exact(jnp.asarray(img2ch), spread=10, channel=0, use_pallas=False)
+    got = hard_sdf_exact(jnp.asarray(img2ch), spread=10, channel=0, core="xla")
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
@@ -96,9 +96,9 @@ def test_row_nearest_sq_exact():
 def test_batched_leading_dims():
     rng = np.random.default_rng(6)
     imgs = (rng.random((3, 16, 16, 2)) * 255).astype(np.uint8)
-    batched = hard_sdf_exact(jnp.asarray(imgs), spread=6, use_pallas=False)
+    batched = hard_sdf_exact(jnp.asarray(imgs), spread=6, core="xla")
     for i in range(3):
-        single = hard_sdf_exact(jnp.asarray(imgs[i]), spread=6, use_pallas=False)
+        single = hard_sdf_exact(jnp.asarray(imgs[i]), spread=6, core="xla")
         np.testing.assert_array_equal(np.asarray(batched[i]), np.asarray(single))
 
 
@@ -107,7 +107,7 @@ def test_exact_large_spread_u16_strips(spread):
     """band > 253 routes through u16 row-distance strips + wide-group
     adaptive pass 2 (the reference EDT is spread-independent,
     openmp/df.c:29-136); still byte-exact at any -s."""
-    from chaq_sdfgen_tpu.ops import pallas_edt
+    from chaq_sdfgen.ops import edt_triton
 
     rng = np.random.default_rng(spread)
     b = rng.random((256, 250)) < 0.02  # sparse: large distances live
@@ -116,12 +116,12 @@ def test_exact_large_spread_u16_strips(spread):
     want = oracle.float_to_byte(
         oracle.signed_merge(outside, inside), spread, False
     )
-    got = pallas_edt.fused_sdf_bytes(jnp.asarray(b), spread, interpret=True)
+    got = edt_triton.sdf_bytes(jnp.asarray(b), spread, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
 def test_exact_large_spread_single_seed():
-    from chaq_sdfgen_tpu.ops import pallas_edt
+    from chaq_sdfgen.ops import edt_triton
 
     b = np.zeros((200, 130), bool)
     b[5, 7] = True
@@ -130,7 +130,7 @@ def test_exact_large_spread_single_seed():
     want = oracle.float_to_byte(
         oracle.signed_merge(outside, inside), 300, True
     )
-    got = pallas_edt.fused_sdf_bytes(
+    got = edt_triton.sdf_bytes(
         jnp.asarray(b), 300, asymmetric=True, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(got), want)
@@ -138,12 +138,10 @@ def test_exact_large_spread_single_seed():
 
 @pytest.mark.parametrize("spread", [638])
 def test_exact_spread_band_multiple_of_128(spread):
-    """Regression (r4 advisor): band = spread + 2 a multiple of 128 made
-    row_off == band, which the looped pass-2 kernel rejected at trace time
-    ('needs row_off >= band+8') on valid inputs. fused_sdf_bytes must
-    request the +8 strip headroom like the dynamic variant; bytes stay
-    identical (pass 2 re-clips to band+1)."""
-    from chaq_sdfgen_tpu.ops import pallas_edt
+    """band = spread + 2 a multiple of the 128-column tile and beyond the
+    u8 row-distance range: the kernel's u16 storage and sentinel padding
+    must keep the bytes exact."""
+    from chaq_sdfgen.ops import edt_triton
 
     rng = np.random.default_rng(spread)
     b = rng.random((64, 80)) < 0.02
@@ -152,5 +150,22 @@ def test_exact_spread_band_multiple_of_128(spread):
     want = oracle.float_to_byte(
         oracle.signed_merge(outside, inside), spread, False
     )
-    got = pallas_edt.fused_sdf_bytes(jnp.asarray(b), spread, interpret=True)
+    got = edt_triton.sdf_bytes(jnp.asarray(b), spread, interpret=True)
     np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.mark.parametrize("band,density", [(3, 0.3), (12, 0.05), (40, 0.01), (64, 0.0)])
+def test_band_min_ext_early_exit_matches_every_tap(band, density):
+    """The XLA core's loop stops once dy^2 reaches the largest value left;
+    its result must equal the plain minimum over every tap of the band."""
+    rng = np.random.default_rng(band)
+    b = rng.random((70, 33)) < density
+    g = np.asarray(edt.row_nearest_sq(jnp.asarray(b), band))
+    big = edt.big_sentinel(band)
+    gp = np.pad(g, ((band, band), (0, 0)), constant_values=big)
+    want = np.min(
+        [gp[band + k : band + k + 70] + np.float32(k * k) for k in range(-band, band + 1)],
+        axis=0,
+    )
+    got = np.asarray(edt.band_min_columns(jnp.asarray(g), band))
+    np.testing.assert_array_equal(got, want)

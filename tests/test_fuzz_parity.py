@@ -1,4 +1,4 @@
-"""Randomized cross-validation: EXACT (XLA + Pallas-interpret) and BRUTE
+"""Randomized cross-validation: EXACT (XLA core + GPU kernel interpreted) and BRUTE
 modes vs the oracle over random shapes, spreads, densities, and flags."""
 
 import numpy as np
@@ -7,8 +7,8 @@ import pytest
 import jax.numpy as jnp
 
 from sdfref import oracle
-from chaq_sdfgen_tpu.models.sdf_model import hard_sdf_exact, hard_sdf_brute
-from chaq_sdfgen_tpu.ops import pallas_edt
+from chaq_sdfgen.models.sdf_model import hard_sdf_exact, hard_sdf_brute
+from chaq_sdfgen.ops import edt_triton
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -29,13 +29,13 @@ def test_fuzz_exact(seed):
     )
     got = hard_sdf_exact(
         jnp.asarray(img2ch), spread=spread, asymmetric=asym, channel=channel,
-        test_above=not invert, use_pallas=False,
+        test_above=not invert, core="xla",
     )
     np.testing.assert_array_equal(np.asarray(got), want)
-    # Pallas kernels in interpreter mode (2-D only, H >= 2)
+    # the GPU kernel in interpreter mode (H >= 2)
     if h >= 2:
         b = oracle.img_to_bool(img2ch, channel=channel, test_above=not invert)
-        gotp = pallas_edt.fused_sdf_bytes(
+        gotp = edt_triton.sdf_bytes(
             jnp.asarray(b), spread, asymmetric=asym, interpret=True
         )
         np.testing.assert_array_equal(np.asarray(gotp), want)

@@ -1,5 +1,6 @@
-"""Jump-flood SDF (BASELINE config 3, single-chip): accuracy vs the exact
-EDT and structural self-consistency."""
+"""Jump-flood SDF (single device): accuracy vs the exact EDT and
+structural self-consistency; the exact full-range field JFA is measured
+against."""
 
 import numpy as np
 import pytest
@@ -7,8 +8,12 @@ import pytest
 import jax.numpy as jnp
 
 from sdfref import oracle
-from chaq_sdfgen_tpu.ops import jfa
-from chaq_sdfgen_tpu.models.sdf_model import hard_sdf_jfa, hard_sdf_exact
+from chaq_sdfgen.ops import edt, edt_triton, jfa
+from chaq_sdfgen.models.sdf_model import (
+    exact_distance_field,
+    hard_sdf_exact,
+    hard_sdf_jfa,
+)
 
 
 def _exact_d(b):
@@ -64,7 +69,7 @@ def test_jfa_pipeline_bytes_close_to_exact():
     img2ch = np.zeros((56, 56, 2), dtype=np.uint8)
     img2ch[..., 1] = np.where(bb, 255, 0)
     got = np.asarray(hard_sdf_jfa(jnp.asarray(img2ch), spread=12))
-    want = np.asarray(hard_sdf_exact(jnp.asarray(img2ch), spread=12, use_pallas=False))
+    want = np.asarray(hard_sdf_exact(jnp.asarray(img2ch), spread=12, core="xla"))
     diff = np.abs(got.astype(int) - want.astype(int))
     assert (diff == 0).mean() >= 0.999
     assert diff.max() <= 11  # a JFA miss is off by at most ~1px of distance
@@ -80,15 +85,13 @@ def test_jfa_batched():
 
 
 def test_exact_distance_field_matches_bruteforce():
-    """The exact full-range field (pallas_edt.exact_distance_field) vs a
+    """The exact full-range field (sdf_model.exact_distance_field) vs a
     brute-force integer reference — no JFA-style misses by construction."""
-    from chaq_sdfgen_tpu.ops import pallas_edt
-
     rng = np.random.default_rng(44)
     for shape, p in [((96, 80), 0.05), ((200, 130), 0.002)]:
         b = rng.random(shape) < p
         got = np.asarray(
-            pallas_edt.exact_distance_field(jnp.asarray(b), interpret=True)
+            exact_distance_field(jnp.asarray(b), core="xla")
         )
         ys, xs = np.nonzero(b)
         H, W = shape
@@ -104,14 +107,12 @@ def test_exact_distance_field_matches_bruteforce():
 
 
 def test_exact_distance_field_no_seeds_and_far_corner():
-    from chaq_sdfgen_tpu.ops import pallas_edt
-
     b0 = np.zeros((64, 96), bool)
-    got = np.asarray(pallas_edt.exact_distance_field(jnp.asarray(b0), interpret=True))
+    got = np.asarray(exact_distance_field(jnp.asarray(b0), core="xla"))
     assert (got == 32768.0).all()  # jfa_distance's no-seed value
     b1 = np.zeros((256, 256), bool)
     b1[0, 0] = True
-    got = np.asarray(pallas_edt.exact_distance_field(jnp.asarray(b1), interpret=True))
+    got = np.asarray(exact_distance_field(jnp.asarray(b1), core="xla"))
     assert abs(got[255, 255] - np.sqrt(2 * 255.0**2)) < 1e-3
 
 
@@ -119,25 +120,21 @@ def test_exact_distance_field_beats_jfa_on_misses():
     """JFA can miss (overestimate); the exact field never under- or
     over-estimates. On random dense seeds both agree except at JFA's
     rare miss pixels, where exact <= jfa."""
-    from chaq_sdfgen_tpu.ops import jfa, pallas_edt
-
     rng = np.random.default_rng(45)
     b = jnp.asarray(rng.random((128, 128)) < 0.02)
-    exact = np.asarray(pallas_edt.exact_distance_field(b, interpret=True))
+    exact = np.asarray(exact_distance_field(b, core="xla"))
     approx = np.asarray(jfa.jfa_distance(b))
     assert (exact <= approx + 1e-4).all()
 
 
 def test_exact_distance_field_beyond_4096():
-    """Regression (VERDICT r4 item 6): >4096 px used to raise; now the
+    """Regression: >4096 px used to raise; now the
     saturation tier scales with the image (exact i32 d^2 up to 16384 px
     per side). Tall sparse image straddling the 4096 boundary."""
-    from chaq_sdfgen_tpu.ops import pallas_edt
-
-    assert pallas_edt._dist_sat(4096) == 8191
-    assert pallas_edt._dist_sat(8192) == 16383
-    assert pallas_edt._dist_sat(16384) == 23170
-    assert pallas_edt._dist_sat(16385) is None
+    assert edt.full_range_sat(4096) == 8191
+    assert edt.full_range_sat(8192) == 16383
+    assert edt.full_range_sat(16384) == 23170
+    assert edt.full_range_sat(16385) is None
     # tier invariants: sat > sqrt(2)*(n-1), sat^2 + (n-1)^2 < 2^31
     for n, sat in ((4096, 8191), (8192, 16383), (16384, 23170)):
         assert sat * sat > 2 * (n - 1) * (n - 1)
@@ -147,7 +144,7 @@ def test_exact_distance_field_beyond_4096():
     b[2, 5] = True
     b[4100, 100] = True
     got = np.asarray(
-        pallas_edt.exact_distance_field(jnp.asarray(b), interpret=True)
+        exact_distance_field(jnp.asarray(b), core="xla")
     )
     ys, xs = np.nonzero(b)
     yy, xx = np.mgrid[0 : b.shape[0], 0 : b.shape[1]]
@@ -160,3 +157,14 @@ def test_exact_distance_field_beyond_4096():
         got.astype(np.float64), np.sqrt(d2ref.astype(np.float64)),
         rtol=1e-6, atol=1e-3,
     )
+
+
+@pytest.mark.parametrize("shape,p", [((96, 80), 0.05), ((70, 200), 0.01), ((33, 129), 0.0)])
+def test_exact_distance_field_kernel_matches_xla(shape, p):
+    """The GPU kernel's full-range epilogue (interpreted) is bitwise equal
+    to the XLA core, no-seed value included."""
+    rng = np.random.default_rng(46)
+    b = jnp.asarray(rng.random(shape) < p)
+    want = np.asarray(exact_distance_field(b, core="xla"))
+    got = np.asarray(edt_triton.distance_field(b, sat=8191, interpret=True))
+    np.testing.assert_array_equal(got, want)

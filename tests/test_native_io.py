@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from chaq_sdfgen_tpu.utils import sdfio_native
-from chaq_sdfgen_tpu.utils.imageio import decode_gray_alpha
+from chaq_sdfgen.utils import sdfio_native
+from chaq_sdfgen.utils.imageio import decode_gray_alpha
 
 pytestmark = pytest.mark.skipif(
     not sdfio_native.available(), reason="native codec not built"
@@ -79,8 +79,8 @@ def test_bmp_decode_pil_written():
     np.testing.assert_array_equal(got[..., 0], want)
 
 
-def test_sample_input_native_equals_pil():
-    with open("/root/reference/image/sample_input.png", "rb") as f:
+def test_sample_input_native_equals_pil(sample):
+    with open(sample.input, "rb") as f:
         data = f.read()
     native = sdfio_native.decode_gray_alpha(data)
     full = decode_gray_alpha(data)  # same path used by the pipeline
@@ -128,9 +128,9 @@ def test_jpeg_encode_odd_sizes():
 
 def test_jpeg_end_to_end_write_gray():
     """write_gray with -f jpg goes through the native encoder and the
-    result decodes to roughly the source (VERDICT: test -q end-to-end)."""
+    result decodes to roughly the source (end to end)."""
     import tempfile, os
-    from chaq_sdfgen_tpu.utils.imageio import write_gray
+    from chaq_sdfgen.utils.imageio import write_gray
 
     x = np.linspace(0, 255, 64)
     img = (np.add.outer(x, x) / 2).astype(np.uint8)
@@ -163,7 +163,7 @@ def test_pnm_decode_native():
 def test_gif_and_pnm_inputs_end_to_end():
     """stb_image reads GIF/PNM (openmp/sdfgen.c:252-256 inherits it);
     both now decode natively (sdfio_decode_gif / _pnm)."""
-    from chaq_sdfgen_tpu.utils.imageio import decode_gray_alpha as dec
+    from chaq_sdfgen.utils.imageio import decode_gray_alpha as dec
 
     rng = np.random.default_rng(4)
     arr = (rng.random((11, 13)) * 255).astype(np.uint8)
@@ -488,7 +488,7 @@ def test_gif_decode_native(interlace):
     """Native GIF (raster, first frame, LZW): palette + interlace; stb's
     integer luminance on the palette RGB (reference inherits GIF via stb,
     openmp/sdfgen.c:252-256)."""
-    from chaq_sdfgen_tpu.utils import sdfio_native
+    from chaq_sdfgen.utils import sdfio_native
 
     rng = np.random.default_rng(17 + interlace)
     a = (rng.random((37, 53, 3)) * 255).astype(np.uint8)
@@ -504,7 +504,7 @@ def test_gif_decode_native(interlace):
 
 
 def test_gif_decode_native_transparency():
-    from chaq_sdfgen_tpu.utils import sdfio_native
+    from chaq_sdfgen.utils import sdfio_native
 
     rng = np.random.default_rng(23)
     a = (rng.random((24, 31, 3)) * 255).astype(np.uint8)
@@ -526,9 +526,8 @@ def test_gif_decode_native_transparency():
 
 @pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
 def test_png_decode_adam7_interlaced(mode):
-    """Adam7 interlaced PNG decodes natively (last stb O9 format delta,
-    VERDICT r4 item 8) — bit-identical to the sequential decode of the
-    same pixels. Odd dims exercise partial/empty interlace passes."""
+    """Adam7 interlaced PNG decodes natively (the last stb O9 format
+    delta) — bit-identical to the sequential decode of the same pixels. Odd dims exercise partial/empty interlace passes."""
     rng = np.random.default_rng(101 + len(mode))
     ch = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}[mode]
     for shape in [(37, 53), (7, 3), (1, 1), (8, 8), (9, 2)]:

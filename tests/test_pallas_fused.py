@@ -1,8 +1,9 @@
-"""Fused soft pipeline (interpreter mode) vs the composed XLA soft path.
+"""The runtime-gated soft path (no declared range) vs the scan cores.
 
-The fused pipeline stores S1 as bf16 between the two band passes, so
-value tolerances are bf16-scaled; gradients are checked against the
-composed path (f32) and against finite differences.
+soft_sdf_field without a gray_range measures the input's height range and
+takes the two-matmul cascade when it fits, the scan cores otherwise; both
+branches must agree with the scan-core reference in values and gradients,
+and with finite differences.
 """
 
 import numpy as np
@@ -11,12 +12,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chaq_sdfgen_tpu.ops import softsdf
-from chaq_sdfgen_tpu.ops import pallas_soft_fused as fused
+from chaq_sdfgen.ops import softsdf
+
+
+def _gated(gray, band, tau, t, eps, test_above=True):
+    return softsdf.soft_sdf_field(
+        gray, band - 2, tau=tau, temperature=t, eps=eps,
+        test_above=test_above, band=band,
+    )
 
 
 def _field_ref(gray, band, tau, t, eps, test_above=True):
-    return softsdf.soft_sdf_field(
+    return softsdf.soft_sdf_field_scan(
         jnp.asarray(gray), band - 2, tau=tau, temperature=t, eps=eps,
         test_above=test_above, band=band,
     )
@@ -30,10 +37,9 @@ def test_fused_fwd_matches_composed(h, w, band, tau, t):
     rng = np.random.default_rng(band + h)
     gray = (rng.random((h, w)) * 255).astype(np.float32)
     got = np.asarray(
-        fused.soft_sdf_field_fused(jnp.asarray(gray), band, tau, t, 1e-6, True, True)
+        _gated(jnp.asarray(gray), band, tau, t, 1e-6, True)
     )
     want = np.asarray(_field_ref(gray, band, tau, t, 1e-6))
-    # bf16 S1 between passes: |d2 err| <~ 2^-8 * |S1|; fields are O(band)
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-2)
 
 
@@ -41,7 +47,7 @@ def test_fused_fwd_inverted_threshold():
     rng = np.random.default_rng(9)
     gray = (rng.random((48, 40)) * 255).astype(np.float32)
     got = np.asarray(
-        fused.soft_sdf_field_fused(jnp.asarray(gray), 5, 2.0, 1.0, 1e-6, False, True)
+        _gated(jnp.asarray(gray), 5, 2.0, 1.0, 1e-6, False)
     )
     want = np.asarray(_field_ref(gray, 5, 2.0, 1.0, 1e-6, test_above=False))
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-2)
@@ -55,7 +61,7 @@ def test_fused_grad_matches_composed():
 
     def loss_fused(g):
         return jnp.vdot(
-            fused.soft_sdf_field_fused(g, band, tau, t, 1e-6, True, True),
+            _gated(g, band, tau, t, 1e-6, True),
             jnp.asarray(ct),
         )
 
@@ -66,15 +72,15 @@ def test_fused_grad_matches_composed():
     g2 = np.asarray(jax.grad(loss_ref)(jnp.asarray(gray)))
     assert np.abs(g2).max() > 0
     scale = np.abs(g2).max()
-    # pixels where the bwd's 1{d2>0} clip mask sits within bf16 rounding
-    # of flipping legitimately disagree between the f32 and bf16-S1
-    # pipelines; every outlier must be explained by such a kink within
-    # its (y then x) band neighbourhood
+    # pixels where the 1{d2>0} clip mask sits within rounding of flipping
+    # legitimately disagree between the two formulations; every outlier
+    # must be explained by such a kink within its (y then x) band
+    # neighbourhood
     bad = np.abs(g1 - g2) > 2e-2 * scale + 2e-2 * np.abs(g2)
     assert bad.mean() < 0.02, f"{bad.sum()} gradient outliers"
     if bad.any():
-        from chaq_sdfgen_tpu.ops import threshold
-        from chaq_sdfgen_tpu.ops.edt import big_sentinel
+        from chaq_sdfgen.ops import threshold
+        from chaq_sdfgen.ops.edt import big_sentinel
         big = big_sentinel(band)
         logits = threshold.soft_logits(jnp.asarray(gray), tau=tau)
         kink = np.zeros((h, w), bool)
@@ -100,7 +106,7 @@ def test_fused_grad_finite_difference():
 
     def loss(g):
         return jnp.vdot(
-            fused.soft_sdf_field_fused(g, band, tau, t, 1e-6, True, True),
+            _gated(g, band, tau, t, 1e-6, True),
             jnp.asarray(weights),
         )
 
@@ -116,12 +122,10 @@ def test_fused_grad_finite_difference():
 
 
 def test_fused_grad_fidelity_multiblock():
-    """Regression: at shapes with multiple TM row-blocks (nb >= 2), bf16
-    inter-pass S1 storage rerouted near-tied soft-min weights and flipped
-    isolated pixel gradients by O(1) vs the f32 composed path. With f32
-    S1/logits storage (only the dS1 cotangent is bf16) the fused gradient
-    must track the composed path tightly everywhere."""
-    from chaq_sdfgen_tpu.ops import softsdf
+    """At shapes spanning several 128-row windows of the cascade, its
+    gradient must track the scan cores tightly everywhere (near-tied
+    soft-min weights must not reroute isolated pixel gradients)."""
+    from chaq_sdfgen.ops import softsdf
 
     rng = np.random.default_rng(7)
     h, w, spread, tau, t = 150, 117, 6, 2.0, 1.0
@@ -132,20 +136,20 @@ def test_fused_grad_fidelity_multiblock():
     g_f = np.asarray(
         jax.grad(
             lambda g: jnp.vdot(
-                fused.soft_sdf_field_fused(g, band, tau, t, 1e-6, True, True), wv
+                _gated(g, band, tau, t, 1e-6, True), wv
             )
         )(gray)
     )
     g_c = np.asarray(
         jax.grad(
             lambda g: jnp.vdot(
-                softsdf.soft_sdf_field(g, spread, tau=tau, temperature=t), wv
+                softsdf.soft_sdf_field_scan(g, spread, tau=tau, temperature=t), wv
             )
         )(gray)
     )
     scale = max(np.abs(g_c).max(), 1e-6)
     assert np.abs(g_f - g_c).max() < 1e-2 * scale, np.abs(g_f - g_c).max()
-    # forward too: f32 storage keeps values at f32-rounding agreement
-    v_f = np.asarray(fused.soft_sdf_field_fused(gray, band, tau, t, 1e-6, True, True))
-    v_c = np.asarray(softsdf.soft_sdf_field(gray, spread, tau=tau, temperature=t))
+    # forward too
+    v_f = np.asarray(_gated(gray, band, tau, t, 1e-6, True))
+    v_c = np.asarray(softsdf.soft_sdf_field_scan(gray, spread, tau=tau, temperature=t))
     np.testing.assert_allclose(v_f, v_c, rtol=1e-4, atol=1e-4)

@@ -1,6 +1,6 @@
-"""Multi-chip sharding on the virtual 8-device CPU mesh: the sharded
-pipelines must be bitwise identical to single-chip, and gradients must flow
-through the halo exchange. (SURVEY.md §4 'multi-chip without a pod')."""
+"""Multi-device sharding on the virtual 8-device CPU mesh: the sharded
+pipelines must be bitwise identical to single-device, and gradients must
+flow through the halo exchange (SURVEY.md §4)."""
 
 import numpy as np
 import pytest
@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from chaq_sdfgen_tpu.models.sdf_model import hard_sdf_exact_from_bool
-from chaq_sdfgen_tpu.ops import softsdf
-from chaq_sdfgen_tpu.parallel import mesh as meshlib
-from chaq_sdfgen_tpu.parallel.sharded import sharded_hard_sdf_bytes, sharded_soft_sdf_field
+from chaq_sdfgen.models.sdf_model import hard_sdf_exact_from_bool
+from chaq_sdfgen.ops import softsdf
+from chaq_sdfgen.parallel import mesh as meshlib
+from chaq_sdfgen.parallel.sharded import sharded_hard_sdf_bytes, sharded_soft_sdf_field
 
 
 from conftest import needs_devices
@@ -28,7 +28,7 @@ def test_sharded_hard_bitwise_equal(n):
     b = rng.random((64, 40)) < 0.35
     mesh = _mesh1d(n)
     got = sharded_hard_sdf_bytes(jnp.asarray(b), 9, mesh)
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 9, use_pallas=False)
+    want = hard_sdf_exact_from_bool(jnp.asarray(b), 9, core="xla")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
@@ -39,7 +39,7 @@ def test_sharded_hard_band_larger_than_shard():
     b = rng.random((64, 32)) < 0.3
     mesh = _mesh1d(8)
     got = sharded_hard_sdf_bytes(jnp.asarray(b), 18, mesh)
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 18, use_pallas=False)
+    want = hard_sdf_exact_from_bool(jnp.asarray(b), 18, core="xla")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
@@ -49,103 +49,8 @@ def test_sharded_hard_batched_2d_mesh():
     needs_devices(8)
     mesh = meshlib.make_mesh((2, 4), ("data", "y"))
     got = sharded_hard_sdf_bytes(jnp.asarray(b), 6, mesh, batch_axis="data")
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 6, use_pallas=False)
+    want = hard_sdf_exact_from_bool(jnp.asarray(b), 6, core="xla")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n", [2, 8])
-def test_sharded_hard_pallas_vs_xla_paths_bitwise(n):
-    # the fused-Pallas sharded pipeline (pass 1 local + u8 halo + fused
-    # pass 2) must produce exactly the same bytes as the XLA-scan sharded
-    # path and the single-chip path
-    rng = np.random.default_rng(10 + n)
-    b = rng.random((64, 40)) < 0.35
-    mesh = _mesh1d(n)
-    got_pallas = sharded_hard_sdf_bytes(jnp.asarray(b), 9, mesh, use_pallas=True)
-    got_xla = sharded_hard_sdf_bytes(jnp.asarray(b), 9, mesh, use_pallas=False)
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 9, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(got_pallas), np.asarray(want))
-    np.testing.assert_array_equal(np.asarray(got_xla), np.asarray(want))
-
-
-def test_sharded_hard_pallas_band_larger_than_shard():
-    # band 20 over 8-row shards: multi-hop u8 halos feed the fused kernel
-    rng = np.random.default_rng(7)
-    b = rng.random((64, 32)) < 0.3
-    mesh = _mesh1d(8)
-    got = sharded_hard_sdf_bytes(jnp.asarray(b), 18, mesh, use_pallas=True)
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 18, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_sharded_hard_rdma_halo_bitwise(use_pallas):
-    # ShardingConfig.halo_impl='rdma': the Pallas remote-DMA ring must be
-    # byte-equal to the ppermute halo on both local cores
-    rng = np.random.default_rng(21)
-    b = rng.random((64, 40)) < 0.35
-    mesh = _mesh1d(4)
-    got = sharded_hard_sdf_bytes(
-        jnp.asarray(b), 9, mesh, use_pallas=use_pallas, halo="rdma"
-    )
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 9, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_sharded_hard_rdma_multihop_bitwise():
-    # band 20 > 8-row shards: the RDMA halo's hop-wise block chain
-    rng = np.random.default_rng(22)
-    b = rng.random((64, 32)) < 0.3
-    mesh = _mesh1d(8)
-    got = sharded_hard_sdf_bytes(jnp.asarray(b), 18, mesh, halo="rdma")
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 18, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.slow
-def test_sharded_soft_rdma_halo_and_gradient():
-    # soft pipeline on the rdma halo: forward equal to ppermute AND the
-    # custom VJP (reverse-ring scatter-add) must match the ppermute grad
-    rng = np.random.default_rng(23)
-    gray = (rng.random((48, 32)) * 255).astype(np.float32)
-    w = jnp.asarray(rng.standard_normal((48, 32)).astype(np.float32))
-    mesh = _mesh1d(4)
-
-    def loss(g, halo):
-        return jnp.vdot(
-            sharded_soft_sdf_field(g, 6, mesh, tau=2.0, temperature=1.0, halo=halo), w
-        )
-
-    f_pp = np.asarray(sharded_soft_sdf_field(jnp.asarray(gray), 6, mesh, tau=2.0,
-                                             temperature=1.0, halo="ppermute"))
-    f_rd = np.asarray(sharded_soft_sdf_field(jnp.asarray(gray), 6, mesh, tau=2.0,
-                                             temperature=1.0, halo="rdma"))
-    np.testing.assert_array_equal(f_rd, f_pp)
-    g_pp = np.asarray(jax.grad(lambda g: loss(g, "ppermute"))(jnp.asarray(gray)))
-    g_rd = np.asarray(jax.grad(lambda g: loss(g, "rdma"))(jnp.asarray(gray)))
-    assert np.abs(g_pp).max() > 0
-    np.testing.assert_allclose(g_rd, g_pp, rtol=1e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_sharded_soft_rdma_multihop_gradient():
-    # band (spread+2=7) > 4-row shards -> 2-hop rdma chains in fwd AND bwd
-    rng = np.random.default_rng(24)
-    gray = (rng.random((32, 16)) * 255).astype(np.float32)
-    w = jnp.asarray(rng.standard_normal((32, 16)).astype(np.float32))
-    mesh = _mesh1d(8)
-
-    def loss(g, halo):
-        return jnp.vdot(
-            sharded_soft_sdf_field(g, 5, mesh, tau=2.0, temperature=1.0, halo=halo), w
-        )
-
-    g_pp = np.asarray(jax.grad(lambda g: loss(g, "ppermute"))(jnp.asarray(gray)))
-    g_rd = np.asarray(jax.grad(lambda g: loss(g, "rdma"))(jnp.asarray(gray)))
-    assert np.abs(g_pp).max() > 0
-    np.testing.assert_allclose(g_rd, g_pp, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.slow
@@ -157,7 +62,7 @@ def test_sharded_soft_matches_single_chip():
         sharded_soft_sdf_field(jnp.asarray(gray), 6, mesh, tau=2.0, temperature=1.0)
     )
     want = np.asarray(
-        softsdf.soft_sdf_field(jnp.asarray(gray), 6, tau=2.0, temperature=1.0)
+        softsdf.soft_sdf_field_scan(jnp.asarray(gray), 6, tau=2.0, temperature=1.0)
     )
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -173,7 +78,7 @@ def test_sharded_soft_gradient_flows_across_shards():
         return jnp.vdot(sharded_soft_sdf_field(g, 5, mesh, tau=2.0, temperature=1.0), w)
 
     def loss_single(g):
-        return jnp.vdot(softsdf.soft_sdf_field(g, 5, tau=2.0, temperature=1.0), w)
+        return jnp.vdot(softsdf.soft_sdf_field_scan(g, 5, tau=2.0, temperature=1.0), w)
 
     g1 = np.asarray(jax.grad(loss_sharded)(jnp.asarray(gray)))
     g2 = np.asarray(jax.grad(loss_single)(jnp.asarray(gray)))
@@ -181,101 +86,46 @@ def test_sharded_soft_gradient_flows_across_shards():
     np.testing.assert_allclose(g1, g2, rtol=1e-4, atol=1e-6)
 
 
-def test_sharded_soft_fused_matches_single_chip_fused():
-    """The fused-kernel sharded split (pass1_s1 / halo / pass2_ext) must
-    match the single-chip fused pipeline (same kernels, interpret mode)."""
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
-
-    rng = np.random.default_rng(21)
+@pytest.mark.parametrize("n,spread", [(2, 6), (4, 6), (8, 8)])
+def test_sharded_soft_scan_matches_single_chip(n, spread):
+    """Undeclared range: each shard runs the scan cores with a band-row
+    halo of the pass-1 field (multi-hop when band > the 8-row shards)."""
+    rng = np.random.default_rng(21 + n)
     gray = (rng.random((64, 40)) * 255).astype(np.float32)
-    spread, band = 6, 8
-    mesh = _mesh1d(4)
+    mesh = _mesh1d(n)
     got = np.asarray(
-        sharded_soft_sdf_field(
-            jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0,
-            use_fused=True, interpret=True,
-        )
+        sharded_soft_sdf_field(jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0)
     )
     want = np.asarray(
-        PF.soft_sdf_field_fused(jnp.asarray(gray), band, 2.0, 1.0, 1e-6, True,
-                                interpret=True)
+        softsdf.soft_sdf_field_scan(jnp.asarray(gray), spread, tau=2.0, temperature=1.0)
     )
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.slow
-def test_sharded_soft_fused_gradient_matches_single_chip():
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
+@pytest.mark.parametrize("gray_range", [None, (0.0, 255.0)])
+def test_sharded_soft_test_above_invert(gray_range):
+    """-n/invert semantics must reach the sharded soft path (both cores:
+    the scan cores without a declared range, the cascade with one)."""
+    from chaq_sdfgen.ops import soft_mxu
 
-    rng = np.random.default_rng(22)
-    gray = (rng.random((32, 24)) * 255).astype(np.float32)
-    spread, band = 5, 7
-    mesh = _mesh1d(4)
-    w = jnp.asarray(rng.standard_normal((32, 24)).astype(np.float32))
-
-    def loss_sharded(g):
-        return jnp.vdot(
-            sharded_soft_sdf_field(
-                g, spread, mesh, tau=2.0, temperature=1.0,
-                use_fused=True, interpret=True,
-            ),
-            w,
-        )
-
-    def loss_single(g):
-        return jnp.vdot(
-            PF.soft_sdf_field_fused(g, band, 2.0, 1.0, 1e-6, True, interpret=True), w
-        )
-
-    g1 = np.asarray(jax.grad(loss_sharded)(jnp.asarray(gray)))
-    g2 = np.asarray(jax.grad(loss_single)(jnp.asarray(gray)))
-    assert np.abs(g2).max() > 0
-    # rtol 2e-2: the single-chip B2 rounds the s1 cotangent to bf16 before
-    # B1; the sharded split keeps it f32 through the halo (strictly more
-    # precise), so individual elements differ by up to ~1 bf16 ulp (0.8%)
-    np.testing.assert_allclose(g1, g2, rtol=2e-2, atol=1e-5)
-
-
-def test_sharded_soft_fused_band_larger_than_shard():
-    # 8 shards of 8 rows, band 10 -> the s1 halo spans multiple shards
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
-
-    rng = np.random.default_rng(23)
-    gray = (rng.random((64, 24)) * 255).astype(np.float32)
-    spread, band = 8, 10
-    mesh = _mesh1d(8)
-    got = np.asarray(
-        sharded_soft_sdf_field(
-            jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0,
-            use_fused=True, interpret=True,
-        )
-    )
-    want = np.asarray(
-        PF.soft_sdf_field_fused(jnp.asarray(gray), band, 2.0, 1.0, 1e-6, True,
-                                interpret=True)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("use_fused", [False, True])
-def test_sharded_soft_test_above_invert(use_fused):
-    """-n/invert semantics must reach the sharded soft path (both cores)."""
     rng = np.random.default_rng(24)
     gray = (rng.random((32, 24)) * 255).astype(np.float32)
     mesh = _mesh1d(4)
     got = np.asarray(
         sharded_soft_sdf_field(
             jnp.asarray(gray), 6, mesh, tau=2.0, temperature=1.0,
-            test_above=False, use_fused=use_fused, interpret=True,
+            test_above=False, gray_range=gray_range,
         )
     )
-    want = np.asarray(
-        softsdf.soft_sdf_field(
+    if gray_range is None:
+        want = softsdf.soft_sdf_field_scan(
             jnp.asarray(gray), 6, tau=2.0, temperature=1.0, test_above=False
         )
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+    else:
+        want = soft_mxu.soft_sdf_field_mxu(
+            jnp.asarray(gray), 8, 2.0, 1.0, 1e-6, test_above=False
+        )
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
 
 
 def test_row_sharding_placement():
@@ -289,8 +139,8 @@ def test_row_sharding_placement():
 @pytest.mark.slow
 @pytest.mark.parametrize("n", [2, 8])
 def test_sharded_jfa_bitwise_equal(n):
-    from chaq_sdfgen_tpu.ops import jfa
-    from chaq_sdfgen_tpu.parallel.sharded import sharded_jfa_distance
+    from chaq_sdfgen.ops import jfa
+    from chaq_sdfgen.parallel.sharded import sharded_jfa_distance
 
     rng = np.random.default_rng(n)
     b = rng.random((64, 48)) < 0.15
@@ -303,8 +153,8 @@ def test_sharded_jfa_bitwise_equal(n):
 @pytest.mark.slow
 def test_sharded_jfa_stride_exceeds_shard():
     # 8 shards of 8 rows, strides up to 32 -> multi-hop state halos
-    from chaq_sdfgen_tpu.ops import jfa
-    from chaq_sdfgen_tpu.parallel.sharded import sharded_jfa_distance
+    from chaq_sdfgen.ops import jfa
+    from chaq_sdfgen.parallel.sharded import sharded_jfa_distance
 
     rng = np.random.default_rng(99)
     b = rng.random((64, 32)) < 0.02
@@ -318,8 +168,8 @@ def test_sharded_jfa_stride_exceeds_shard():
 def test_sharded_jfa_small_fast():
     """Fast-profile JFA sharding coverage (the exhaustive bitwise tests
     above are marked slow): 16x16, 2 shards, strides down from 8."""
-    from chaq_sdfgen_tpu.ops import jfa
-    from chaq_sdfgen_tpu.parallel.sharded import sharded_jfa_distance
+    from chaq_sdfgen.ops import jfa
+    from chaq_sdfgen.parallel.sharded import sharded_jfa_distance
 
     rng = np.random.default_rng(77)
     b = rng.random((16, 16)) < 0.2
@@ -333,7 +183,7 @@ def test_sharded_jfa_small_fast():
 def test_sharded_soft_mm_matches_single_chip_mm():
     """The collapsed two-einsum sharded split (K2-row pass-1-sum halo)
     must match the single-chip mm path (same math, CPU precision)."""
-    from chaq_sdfgen_tpu.ops import soft_mxu
+    from chaq_sdfgen.ops import soft_mxu
 
     rng = np.random.default_rng(81)
     gray = (rng.random((64, 40)) * 255).astype(np.float32)
@@ -342,17 +192,17 @@ def test_sharded_soft_mm_matches_single_chip_mm():
     got = np.asarray(
         sharded_soft_sdf_field(
             jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0,
-            gray_range=(0.0, 255.0), use_mm=True, interpret=True,
+            gray_range=(0.0, 255.0),
         )
     )
     want = np.asarray(
-        soft_mxu.soft_sdf_field_mxu(jnp.asarray(gray), band, 2.0, 1.0, 1e-6, pass2="mm")
+        soft_mxu.soft_sdf_field_mxu(jnp.asarray(gray), band, 2.0, 1.0, 1e-6)
     )
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_sharded_soft_mm_gradient_matches_single_chip():
-    from chaq_sdfgen_tpu.ops import soft_mxu
+    from chaq_sdfgen.ops import soft_mxu
 
     rng = np.random.default_rng(82)
     gray = (rng.random((32, 24)) * 255).astype(np.float32)
@@ -364,14 +214,14 @@ def test_sharded_soft_mm_gradient_matches_single_chip():
         return jnp.vdot(
             sharded_soft_sdf_field(
                 g, spread, mesh, tau=2.0, temperature=1.0,
-                gray_range=(0.0, 255.0), use_mm=True, interpret=True,
+                gray_range=(0.0, 255.0),
             ),
             w,
         )
 
     def loss_single(g):
         return jnp.vdot(
-            soft_mxu.soft_sdf_field_mxu(g, band, 2.0, 1.0, 1e-6, pass2="mm"), w
+            soft_mxu.soft_sdf_field_mxu(g, band, 2.0, 1.0, 1e-6), w
         )
 
     g1 = np.asarray(jax.grad(loss_sharded)(jnp.asarray(gray)))
@@ -380,159 +230,45 @@ def test_sharded_soft_mm_gradient_matches_single_chip():
     np.testing.assert_allclose(g1, g2, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("fused_impl", ["window", "split"])
-def test_sharded_soft_fused_impls_match_single_chip(fused_impl):
-    """Both fused shardings — the windowed whole-pipeline form (gray halo
-    + traced live-row window) and the pass1/pass2 split (s1 halo) — must
-    match the single-chip fused pipeline, including the edge shards'
-    beyond-image masking."""
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
+@pytest.mark.parametrize("n", [2, 8])
+def test_sharded_soft_mm_halo_spans_shards(n):
+    """The cascade's K2-row halo of the pass-1 sum: with 8 shards of 8
+    rows, K2 = 10 > 8 and the halo hops two shards."""
+    from chaq_sdfgen.ops import soft_mxu
 
-    rng = np.random.default_rng(91)
+    rng = np.random.default_rng(90 + n)
     gray = (rng.random((64, 40)) * 255).astype(np.float32)
-    spread, band = 6, 8
-    mesh = _mesh1d(2)
+    mesh = _mesh1d(n)
     got = np.asarray(
         sharded_soft_sdf_field(
-            jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0,
-            use_fused=True, fused_impl=fused_impl, interpret=True,
+            jnp.asarray(gray), 14, mesh, tau=2.0, temperature=1.0,
+            gray_range=(0.0, 255.0),
         )
     )
-    want = np.asarray(
-        PF.soft_sdf_field_fused(jnp.asarray(gray), band, 2.0, 1.0, 1e-6, True,
-                                interpret=True)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-def test_sharded_soft_fused_window_gradient():
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
-
-    rng = np.random.default_rng(92)
-    gray = (rng.random((64, 24)) * 255).astype(np.float32)
-    spread, band = 5, 7
-    mesh = _mesh1d(2)
-    w = jnp.asarray(rng.standard_normal((64, 24)).astype(np.float32))
-
-    def loss_sharded(g):
-        return jnp.vdot(
-            sharded_soft_sdf_field(
-                g, spread, mesh, tau=2.0, temperature=1.0,
-                use_fused=True, fused_impl="window", interpret=True,
-            ),
-            w,
-        )
-
-    def loss_single(g):
-        return jnp.vdot(
-            PF.soft_sdf_field_fused(g, band, 2.0, 1.0, 1e-6, True, interpret=True), w
-        )
-
-    g1 = np.asarray(jax.grad(loss_sharded)(jnp.asarray(gray)))
-    g2 = np.asarray(jax.grad(loss_single)(jnp.asarray(gray)))
-    assert np.abs(g2).max() > 0
-    # bf16 ds1t rounding differs between the halo-extended and plain
-    # blocks at a handful of knee pixels (same class as the split test)
-    np.testing.assert_allclose(g1, g2, rtol=2e-2, atol=1e-5)
-
-
-def test_sharded_soft_fused_window_4shards_test_above():
-    from chaq_sdfgen_tpu.ops import pallas_soft_fused as PF
-
-    rng = np.random.default_rng(93)
-    gray = (rng.random((128, 32)) * 255).astype(np.float32)
-    spread, band = 6, 8
-    mesh = _mesh1d(4)
-    got = np.asarray(
-        sharded_soft_sdf_field(
-            jnp.asarray(gray), spread, mesh, tau=2.0, temperature=1.0,
-            test_above=False, use_fused=True, fused_impl="window", interpret=True,
-        )
-    )
-    want = np.asarray(
-        PF.soft_sdf_field_fused(jnp.asarray(gray), band, 2.0, 1.0, 1e-6, False,
-                                interpret=True)
-    )
+    want = np.asarray(soft_mxu.soft_sdf_field_mxu(jnp.asarray(gray), 16, 2.0, 1.0, 1e-6))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_sharded_hard_sparse_seed_across_seam_uncovered_tail():
-    """Regression (r4 advisor): the looped pass-2 kernel built its
-    segment-min table with nseg = hext // 64 (floor). Sharded strips have
-    hext = h_local + 2*roundup(band+8, 8), generally not 64-divisible, so
-    the bottom-neighbour halo's last hext % 64 rows were uncovered; a
-    lone seed there (rows past the shard seam in a sparse region) was
-    silently dropped — the clamped seg indices overestimated the skip
-    bound. h_local=56, band=66: hext = 216, uncovered strip rows 192-215 =
-    neighbour offsets 56-79; the seed sits 56 rows below shard 0's seam,
-    inside the spread so the miss is byte-visible (distances beyond the
-    spread are clamped by the remap and would hide it)."""
+    """A lone seed 56 rows below shard 0's seam, inside the spread, must
+    reach shard 0 through the 66-row halo; each shard's early-exit tap
+    loop (edt.band_min_ext) must not stop before it (distances beyond
+    the spread are clamped by the remap and would hide a miss)."""
     b = np.zeros((224, 128), bool)
     b[112, 64] = True  # 56 rows below shard 0's bottom edge (row 55)
     mesh = _mesh1d(4)
-    got = sharded_hard_sdf_bytes(jnp.asarray(b), 64, mesh, use_pallas=True)
-    want = hard_sdf_exact_from_bool(jnp.asarray(b), 64, use_pallas=False)
+    got = sharded_hard_sdf_bytes(jnp.asarray(b), 64, mesh)
+    want = hard_sdf_exact_from_bool(jnp.asarray(b), 64, core="xla")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-class TestShardedBrute:
-    """Sharded BRUTE (VERDICT r4 item 3): row-sharded pass A + strip halo
-    + halo-operand dy-scan kernel, bitwise vs the single-chip pipeline
-    (and hence the reference kernel, opencl/sdf.cl:193-224)."""
-
-    def _check(self, b, spread, n, **kw):
-        from chaq_sdfgen_tpu.ops.brute import brute_sdf_bytes
-        from chaq_sdfgen_tpu.parallel.sharded import sharded_brute_sdf_bytes
-
-        mesh = _mesh1d(n)
-        got = sharded_brute_sdf_bytes(jnp.asarray(b), spread, mesh, **kw)
-        want = brute_sdf_bytes(jnp.asarray(b), spread, use_pallas=False, **kw)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    @pytest.mark.parametrize("n", [2, 4])
-    def test_bitwise_equal(self, n):
-        rng = np.random.default_rng(n)
-        b = rng.random((64, 40)) < 0.35
-        self._check(b, 9, n)
-
-    def test_spread_exceeds_shard_height(self):
-        # spread 20 > 8-row shards: multi-hop strip halos
-        rng = np.random.default_rng(5)
-        b = rng.random((64, 32)) < 0.3
-        self._check(b, 20, 8)
-
-    def test_invert_and_asymmetric(self):
-        rng = np.random.default_rng(6)
-        b = rng.random((32, 24)) < 0.4
-        self._check(b, 7, 4, invert=True, asymmetric=True)
-
-    def test_sparse_single_seed_near_seam(self):
-        b = np.zeros((64, 32), bool)
-        b[33, 10] = True  # just below the 2-shard seam
-        self._check(b, 30, 2)
-
-    def test_batched(self):
-        from chaq_sdfgen_tpu.ops.brute import brute_sdf_bytes
-        from chaq_sdfgen_tpu.parallel.sharded import sharded_brute_sdf_bytes
-
-        rng = np.random.default_rng(7)
-        b = rng.random((4, 32, 24)) < 0.35
-        needs_devices(8)
-        mesh = meshlib.make_mesh((2, 4), ("data", "y"))
-        got = sharded_brute_sdf_bytes(
-            jnp.asarray(b), 6, mesh, batch_axis="data"
-        )
-        want = brute_sdf_bytes(jnp.asarray(b), 6, use_pallas=False)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 @pytest.mark.parametrize("shape2d", [(2, 4), (4, 2)])
 def test_sharded_jfa_2d_mesh_bitwise_equal(shape2d):
-    """x-sharded JFA (VERDICT r4 item 5): 2-D ('y','x') tile mesh,
+    """x-sharded JFA: 2-D ('y','x') tile mesh,
     bitwise vs single-chip — incl. strides exceeding the tile width
     (multi-hop col slabs through fetch_col_slab)."""
-    from chaq_sdfgen_tpu.ops import jfa
-    from chaq_sdfgen_tpu.parallel.sharded import sharded_jfa_distance
+    from chaq_sdfgen.ops import jfa
+    from chaq_sdfgen.parallel.sharded import sharded_jfa_distance
 
     rng = np.random.default_rng(sum(shape2d))
     b = rng.random((64, 48)) < 0.15
@@ -548,8 +284,8 @@ def test_sharded_jfa_2d_mesh_bitwise_equal(shape2d):
 def test_sharded_jfa_2d_sparse_corner_seed():
     # a single seed whose propagation must cross BOTH mesh axes,
     # including the diagonal (two-hop corner) route
-    from chaq_sdfgen_tpu.ops import jfa
-    from chaq_sdfgen_tpu.parallel.sharded import sharded_jfa_distance
+    from chaq_sdfgen.ops import jfa
+    from chaq_sdfgen.parallel.sharded import sharded_jfa_distance
 
     b = np.zeros((32, 32), bool)
     b[3, 2] = True
@@ -558,3 +294,15 @@ def test_sharded_jfa_2d_sparse_corner_seed():
     got = np.asarray(sharded_jfa_distance(jnp.asarray(b), mesh, x_axis="x"))
     want = np.asarray(jfa.jfa_distance(jnp.asarray(b)))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,spread", [(2, 300), (4, 70)])
+def test_sharded_hard_wide_band(n, spread):
+    """Bands wider than a shard (multi-hop halos) and beyond the u8 range
+    of the single-device kernel: still bitwise equal to one device."""
+    b = np.zeros((128, 96), bool)
+    b[5, 9] = b[100, 90] = True
+    mesh = _mesh1d(n)
+    got = sharded_hard_sdf_bytes(jnp.asarray(b), spread, mesh)
+    want = hard_sdf_exact_from_bool(jnp.asarray(b), spread, core="xla")
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
